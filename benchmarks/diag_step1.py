@@ -2,7 +2,7 @@
 import os, sys, time, tempfile
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from topsicle_tpu.utils import enable_compilation_cache
 enable_compilation_cache()
 from benchmarks.e2e_cli import make_fastq
@@ -28,7 +28,7 @@ def main():
     import jax
 
     model = TelomereScanModel(telophrase_kmers("CCCTAAA", 5), window_size=100, slide=6)
-    print("backend:", jax.default_backend(), "pallas:", model.use_pallas, file=sys.stderr)
+    print("backend:", jax.default_backend(), file=sys.stderr)
 
     B = 128
     groups = [reads[i:i+B] for i in range(0, len(reads), B)]

@@ -7,7 +7,7 @@ telomeric), runs the full JaxEngine pipeline (parse -> step1 -> subset
 import gzip, os, sys, tempfile, time
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from topsicle_tpu.utils import enable_compilation_cache
 enable_compilation_cache()
 

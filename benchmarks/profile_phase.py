@@ -1,5 +1,5 @@
-"""Compile + time the phase window-scan strategy on the real chip."""
-import sys, time
+"""Compile + time the phase window-scan strategy on the GPU."""
+import os, sys, time
 import numpy as np
 import jax
 
@@ -10,7 +10,8 @@ from topsicle_tpu.io import batch as batching
 from topsicle_tpu.kmers import telophrase_kmers
 from topsicle_tpu.models import TelomereScanModel
 import importlib
-sys.path.insert(0, "/root/repo"); bench = importlib.import_module("bench")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+bench = importlib.import_module("bench")
 
 rng = np.random.default_rng(42)
 B = 128

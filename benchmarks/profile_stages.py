@@ -1,13 +1,15 @@
 """One-off profiling harness: decompose bench.py's per-iter time on the
-real TPU into dispatch latency, transfer, and per-stage device compute.
+GPU into dispatch latency, transfer, and per-stage device compute.
 Diagnostics only — not part of the framework.
 """
 import os, sys, time
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
 
 import numpy as np
 import jax
 import jax.numpy as jnp
+
+from topsicle_tpu.utils import enable_compilation_cache
+enable_compilation_cache()
 
 from topsicle_tpu.io import batch as batching
 from topsicle_tpu.kmers import telophrase_kmers

@@ -8,7 +8,8 @@
 // numpy/ctypes can consume zero-copy.  Also provides the subset-file
 // writer (Biopython-compatible formatting: bare '+', 60-column FASTA).
 //
-// Build: g++ -O3 -std=c++17 -fPIC -shared tsio.cc -o _tsio.so -lz
+// Build: topsicle_tpu/native/loader.py runs g++ -O3 -std=c++17 -fPIC -shared
+// tsio.cc -lz into native/build/_tsio-<source hash>.so on first use.
 //
 // Base codes match topsicle_tpu.kmers: A=0 C=1 G=2 T=3, others=4
 // (case-insensitive).

@@ -1,200 +1,111 @@
-"""AOT executable cache (utils/aot_cache.py).
+"""Ahead-of-time warming (`topsicle --precompile`) and the persistent
+compilation cache it fills (utils/compile_cache.py).
 
-The production policy enables the cache only on the TPU backend; these
-tests force it on (TOPSICLE_AOT=1) with a private cache dir so the
-serialize -> disk -> deserialize_and_load round trip is exercised on the
-CPU test backend.  The reference has no compile pipeline at all — this
-subsystem is pure TPU-first engineering (see aot_cache.py docstring for
-the measured 124 s -> 0.4 s cold-start effect on the real chip).
+The cache lives where JAX_COMPILATION_CACHE_DIR says, else at a fixed
+path inside the checkout; --precompile compiles every program a
+configuration uses into it, so later processes load instead of compile.
 """
 
 import os
+import re
+import subprocess
+import sys
 
+import jax
 import numpy as np
 import pytest
+from jax._src import compilation_cache
 
-from topsicle_tpu.utils.aot_cache import AotJit, aot_enabled
+from topsicle_tpu.utils import compile_cache
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CACHE_HITS = "/jax/compilation_cache/cache_hits"
 
 
 @pytest.fixture
-def aot_env(tmp_path, monkeypatch):
-    monkeypatch.setenv("TOPSICLE_AOT", "1")
-    monkeypatch.setenv("TOPSICLE_AOT_DIR", str(tmp_path))
-    return tmp_path
+def jax_cache(tmp_path, monkeypatch):
+    """A private persistent cache for this test; the process's previous
+    cache settings come back afterwards."""
+    names = ("jax_compilation_cache_dir",
+             "jax_persistent_cache_min_compile_time_secs",
+             "jax_persistent_cache_min_entry_size_bytes")
+    saved = {n: getattr(jax.config, n) for n in names}
+    d = tmp_path / "jax_cache"
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(d))
+    compilation_cache.reset_cache()
+    yield d
+    for n, v in saved.items():
+        jax.config.update(n, v)
+    compilation_cache.reset_cache()
 
 
-def _fn(x, y):
-    import jax.numpy as jnp
-
-    return jnp.cumsum(x, axis=1) + y.sum(axis=1, keepdims=True)
+def _entries(d) -> int:
+    return sum(len(f) for _, _, f in os.walk(d)) if os.path.isdir(d) else 0
 
 
-def test_disabled_by_default_on_cpu(monkeypatch):
-    monkeypatch.delenv("TOPSICLE_AOT", raising=False)
-    assert not aot_enabled()      # tests run on the CPU backend
-
-
-def test_compile_then_disk_roundtrip(aot_env):
-    x = np.arange(24, dtype=np.int32).reshape(4, 6)
-    y = np.ones((4, 3), np.int32)
-
-    a = AotJit(_fn, name="t_roundtrip")
-    r1 = np.asarray(a(x, y))
-    assert list(a.sources.values()) == ["compile"]
-    files = [f for f in os.listdir(aot_env) if f.endswith(".aot")]
-    assert len(files) == 1 and files[0].startswith("t_roundtrip-")
-
-    # a fresh instance (modeling a fresh process) must load from disk
-    b = AotJit(_fn, name="t_roundtrip")
-    r2 = np.asarray(b(x, y))
-    assert list(b.sources.values()) == ["disk"]
-    np.testing.assert_array_equal(r1, r2)
-
-    # and match the plain-jit result exactly
-    import jax
-
-    np.testing.assert_array_equal(r1, np.asarray(jax.jit(_fn)(x, y)))
-
-
-def test_distinct_shapes_get_distinct_entries(aot_env):
-    a = AotJit(_fn, name="t_shapes")
-    a(np.ones((2, 4), np.int32), np.ones((2, 2), np.int32))
-    a(np.ones((3, 5), np.int32), np.ones((3, 2), np.int32))
-    assert len([f for f in os.listdir(aot_env) if f.endswith(".aot")]) == 2
-    assert list(a.sources.values()) == ["compile", "compile"]
-
-
-def test_corrupt_cache_entry_recovers(aot_env):
-    x = np.ones((2, 4), np.int32)
-    y = np.ones((2, 2), np.int32)
-    a = AotJit(_fn, name="t_corrupt")
-    expect = np.asarray(a(x, y))
-    (path,) = [aot_env / f for f in os.listdir(aot_env) if f.endswith(".aot")]
-    path.write_bytes(b"garbage")
-    b = AotJit(_fn, name="t_corrupt")
-    got = np.asarray(b(x, y))
-    np.testing.assert_array_equal(got, expect)
-    assert list(b.sources.values()) == ["compile"]   # recompiled + overwrote
-    c = AotJit(_fn, name="t_corrupt")
-    np.testing.assert_array_equal(np.asarray(c(x, y)), expect)
-    assert list(c.sources.values()) == ["disk"]      # repaired entry loads
-
-
-def test_static_argnames(aot_env):
-    def g(x, L):
-        return x[:, :L].sum(axis=1)
-
-    a = AotJit(g, static_argnames=("L",), name="t_static")
-    x = np.arange(32, dtype=np.int32).reshape(4, 8)
-    r3 = np.asarray(a(x, L=3))
-    r5 = np.asarray(a(x, L=5))
-    np.testing.assert_array_equal(r3, x[:, :3].sum(axis=1))
-    np.testing.assert_array_equal(r5, x[:, :5].sum(axis=1))
-    # distinct static values = distinct programs = distinct cache files
-    assert len([f for f in os.listdir(aot_env) if f.endswith(".aot")]) == 2
-    b = AotJit(g, static_argnames=("L",), name="t_static")
-    np.testing.assert_array_equal(np.asarray(b(x, L=3)), r3)
-    assert list(b.sources.values()) == ["disk"]
-
-
-def test_model_programs_are_aot_wrapped(aot_env):
-    from topsicle_tpu.kmers import telophrase_kmers
-    from topsicle_tpu.models import TelomereScanModel
-
-    m = TelomereScanModel(telophrase_kmers("CCCTAAA", 5), slide=6)
-    for prog in (m._step1, m._step2, m._step1_lean, m._step2_lean,
-                 m._rawcounts, m._rawcounts_lean):
-        assert isinstance(prog, AotJit)
-
-
-def test_sharded_model_roundtrip_under_aot(aot_env):
-    """shard_map executables over the 8-device mesh serialize and reload
-    (the pod-scale path); results stay bit-identical to the base model."""
-    from topsicle_tpu.io import batch as batching
-    from topsicle_tpu.kmers import telophrase_kmers
-    from topsicle_tpu.models import TelomereScanModel
-    from topsicle_tpu.parallel import ShardedScanModel, data_mesh
-
-    rng = np.random.default_rng(3)
-    reads = rng.integers(0, 4, (16, 600), dtype=np.uint8)
-    kms = telophrase_kmers("CCCTAAA", 5)
-    base = TelomereScanModel(kms, slide=6)
-
-    def run_sharded():
-        m = ShardedScanModel(TelomereScanModel(kms, slide=6),
-                             mesh=data_mesh(8))
-        tails, lens = batching.tails_batch(list(reads), 600)
-        nw = batching.window_counts_for_lengths(lens, 100, 6)
-        return m.step2_boundary(tails, nw, lens)
-
-    t1, h1 = run_sharded()                    # compiles + serializes
-    t2, h2 = run_sharded()                    # loads from disk
-    np.testing.assert_array_equal(t1, t2)
-    np.testing.assert_array_equal(h1, h2)
-    tails, lens = batching.tails_batch(list(reads), 600)
-    nw = batching.window_counts_for_lengths(lens, 100, 6)
-    tb, hb = base.step2_boundary(tails, nw, lens)
-    np.testing.assert_array_equal(t1, tb)
-    np.testing.assert_array_equal(h1, hb)
-
-
-def test_precompile_warms_every_program(aot_env, tmp_path):
-    """`topsicle --precompile` compiles + serializes both stages in both
-    wire formats (and rawcounts when flagged); a fresh model then loads
-    every one of them from disk."""
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
+def test_precompile_warms_every_program(jax_cache, tmp_path):
+    """`topsicle --precompile` compiles both stages in both wire formats
+    (and rawcounts when flagged) into the persistent cache; a fresh
+    model then loads every one of them from it."""
     from topsicle_tpu.config import TopsicleConfig
     from topsicle_tpu.io import batch as batching
     from topsicle_tpu.io.writer import RunLog
     from topsicle_tpu.kmers import telophrase_kmers
     from topsicle_tpu.models import TelomereScanModel
+    from topsicle_tpu.parallel import ShardedScanModel, data_mesh
     from topsicle_tpu.pipeline import JaxEngine
 
+    assert compile_cache.enable_compilation_cache() == str(jax_cache)
     cfg = TopsicleConfig(
         input_dir=str(tmp_path), output_dir=str(tmp_path / "o"),
         pattern="CCCTAAA", slide=6, batch_size=8, maxlengthtelo=1100,
         rawcountpattern=True)
-    n = JaxEngine(cfg, log=RunLog(None, echo=False)).precompile()
-    assert n == 6
-    # the test mesh has 8 virtual devices, so the engine's stage
-    # programs are the shard_map variants; rawcounts stays on the base
-    names = sorted({f.split("-")[0] for f in os.listdir(aot_env)
-                    if f.endswith(".aot")})
-    assert names == ["rawcounts", "rawcounts_lean", "sh_step1",
-                     "sh_step1_lean", "sh_step2", "sh_step2_lean"]
+    with compile_cache.count_compiled_programs() as names:
+        n = JaxEngine(cfg, log=RunLog(None, echo=False)).precompile()
+    # the test mesh has 8 virtual devices, so the engine's stage programs
+    # are the shard_map variants (step 1 and step 2, lean and dense);
+    # rawcounts (lean and dense) stays on the base model.  Fetching
+    # sharded results compiles JAX's own small gather programs too.
+    assert n == len(names) >= 6
+    for prog in ("_step1_counts_lean", "_step1_counts",
+                 "_step2_boundary_lean", "_step2_boundary"):
+        assert f"jit({prog})" in names
+    assert _entries(jax_cache) >= 6
 
-    # a fresh engine-shaped model (fresh process stand-in) must hit
-    # disk for all six programs
-    from topsicle_tpu.parallel import ShardedScanModel, data_mesh
+    hits = []
 
-    m = ShardedScanModel(
-        TelomereScanModel(telophrase_kmers("CCCTAAA", 5), slide=6),
-        mesh=data_mesh(8))
-    B = 8
-    ends = np.zeros((B, 2, 1000), np.uint8)
-    el = np.full(B, 1000, np.int32)
-    m.step1_counts(ends, el)
-    dirty = ends.copy(); dirty[0, 0, 0] = 0xFF
-    m.step1_counts(dirty, el)
-    L = 1024
-    tails = np.zeros((B, L), np.uint8)
-    lens = np.full(B, L, np.int32)
-    nw = batching.window_counts_for_lengths(lens, 100, 6)
-    m.step2_boundary(tails, nw, lens)
-    dt = tails.copy(); dt[0, 0] = 0xFF
-    m.step2_boundary(dt, nw, lens)
-    m.rawcounts(tails, lens)
-    m.rawcounts(dt, lens)
-    srcs = []
-    for prog in (m._step1_lean, m._step1, m._step2_lean, m._step2,
-                 m.base._rawcounts_lean, m.base._rawcounts):
-        srcs.extend(prog.sources.values())
-    assert srcs == ["disk"] * 6
+    def listener(event, **kwargs):
+        if event == _CACHE_HITS:
+            hits.append(event)
+
+    jax.monitoring.register_event_listener(listener)
+    try:
+        m = ShardedScanModel(
+            TelomereScanModel(telophrase_kmers("CCCTAAA", 5), slide=6),
+            mesh=data_mesh(8))
+        B = 8
+        ends = np.zeros((B, 2, 1000), np.uint8)
+        el = np.full(B, 1000, np.int32)
+        m.step1_counts(ends, el)
+        dirty = ends.copy()
+        dirty[0, 0, 0] = 0xFF
+        m.step1_counts(dirty, el)
+        L = 1024
+        tails = np.zeros((B, L), np.uint8)
+        lens = np.full(B, L, np.int32)
+        nw = batching.window_counts_for_lengths(lens, 100, 6)
+        m.step2_boundary(tails, nw, lens)
+        dt = tails.copy()
+        dt[0, 0] = 0xFF
+        m.step2_boundary(dt, nw, lens)
+        m.rawcounts(tails, lens)
+        m.rawcounts(dt, lens)
+    finally:
+        jax.monitoring.unregister_event_listener(listener)
+    assert len(hits) == 6
 
 
-def test_precompile_cli_flag(aot_env, tmp_path):
+def test_precompile_cli_flag(jax_cache, tmp_path):
     from topsicle_tpu.cli import main as cli_main
 
     rc = cli_main([
@@ -202,31 +113,59 @@ def test_precompile_cli_flag(aot_env, tmp_path):
         "--pattern", "CCCTAAA", "--slide", "6", "--batchSize", "8",
         "--maxlengthtelo", "1100", "--precompile"])
     assert rc == 0
-    assert any(f.endswith(".aot") for f in os.listdir(aot_env))
+    assert _entries(jax_cache) > 0
+    log = (tmp_path / "o" / "topsicle_run.log").read_text()
+    assert f"compile cache: {jax_cache}" in log
+    assert re.search(r"precompiled [1-9][0-9]* device programs into "
+                     + re.escape(str(jax_cache)), log)
 
 
-def test_model_end_to_end_under_aot(aot_env):
-    """The whole launch path (pack + program) is bit-identical with the
-    cache on, across a simulated process restart."""
-    from topsicle_tpu.io import batch as batching
-    from topsicle_tpu.kmers import telophrase_kmers
-    from topsicle_tpu.models import TelomereScanModel
+def test_count_compiled_programs_counts_each_program_once():
+    f = jax.jit(lambda x: x * 3 + 1)
+    with compile_cache.count_compiled_programs() as names:
+        f(np.ones(5, np.int32))
+        f(np.ones(5, np.int32))            # same shape: no new program
+        f(np.ones(6, np.int32))
+    assert len(names) == 2
 
-    rng = np.random.default_rng(7)
-    reads = rng.integers(0, 4, (8, 600), dtype=np.uint8)
-    kms = telophrase_kmers("CCCTAAA", 5)
 
-    def run():
-        m = TelomereScanModel(kms, slide=6)
-        tails, lens = batching.tails_batch(list(reads), 600)
-        nw = batching.window_counts_for_lengths(lens, 100, 6)
-        t, has = m.step2_boundary(tails, nw, lens)
-        ends = np.stack([batching.extract_ends(r, 250) for r in reads])
-        c = m.step1_counts(ends, np.full(8, 250, np.int32))
-        return t, has, c
+def test_cache_dir_honours_env_var(tmp_path):
+    """JAX_COMPILATION_CACHE_DIR decides, in a fresh process, and JAX
+    writes its entries there."""
+    d = tmp_path / "elsewhere"
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import jax, numpy as np\n"
+         "from topsicle_tpu.utils.compile_cache import enable_compilation_cache\n"
+         "print(enable_compilation_cache())\n"
+         "jax.jit(lambda x: x + 1)(np.ones(3))\n"],
+        env=dict(os.environ, JAX_COMPILATION_CACHE_DIR=str(d),
+                 JAX_PLATFORMS="cpu", PYTHONPATH=REPO),
+        capture_output=True, text=True, timeout=300, cwd=str(tmp_path))
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == str(d)
+    assert _entries(d) > 0
 
-    t1, h1, c1 = run()   # compiles + serializes
-    t2, h2, c2 = run()   # fresh model: loads from disk
-    np.testing.assert_array_equal(t1, t2)
-    np.testing.assert_array_equal(h1, h2)
-    np.testing.assert_array_equal(c1, c2)
+
+def test_cache_dir_default_is_fixed_in_checkout(monkeypatch):
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    assert compile_cache.cache_dir() == os.path.join(REPO, ".jax_cache")
+    assert compile_cache.DEFAULT_CACHE_DIR == os.path.join(REPO, ".jax_cache")
+
+
+def test_cache_dir_same_across_processes_and_cwds(tmp_path):
+    """Two processes started from two working directories resolve the
+    same path: no cwd, temp name, pid or time enters it."""
+    env = {k: v for k, v in os.environ.items()
+           if k != "JAX_COMPILATION_CACHE_DIR"}
+    env["PYTHONPATH"] = REPO
+    seen = []
+    for cwd in (tmp_path, REPO):
+        out = subprocess.run(
+            [sys.executable, "-c",
+             "from topsicle_tpu.utils.compile_cache import cache_dir\n"
+             "print(cache_dir())"],
+            env=env, capture_output=True, text=True, timeout=120, cwd=str(cwd))
+        assert out.returncode == 0, out.stderr[-2000:]
+        seen.append(out.stdout.strip())
+    assert seen[0] == seen[1] == os.path.join(REPO, ".jax_cache")

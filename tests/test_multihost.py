@@ -2,7 +2,7 @@
 jax.distributed (gloo), each with 4 virtual CPU devices, forming one
 8-device global mesh.  --shardMode global shards every batch over all
 devices of both processes (GSPMD inserts the cross-process collectives
-— the DCN path on a real pod) and the merged CSV must be byte-identical
+— NCCL between cards on a real machine) and the merged CSV must be byte-identical
 to a single-process run."""
 
 import gzip

@@ -89,3 +89,48 @@ def test_engine_native_vs_python_csv(demo_fastq, demo_csv, tmp_path):
     JaxEngine(cfg).run()
     with open(demo_csv, "rb") as fh:
         assert (tmp_path / "telolengths_all.csv").read_bytes() == fh.read()
+
+def test_library_is_built_from_committed_source():
+    """The loaded library sits in the ignored build dir under a name
+    keyed by the hash of tsio.cc."""
+    import hashlib
+    import os
+
+    from topsicle_tpu.native import loader
+
+    with open(loader._SRC, "rb") as fh:
+        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
+    path = loader.library_path()
+    assert os.path.basename(path) == f"_tsio-{digest}.so"
+    assert os.path.dirname(path) == loader._BUILD_DIR
+    assert os.path.exists(path)
+
+
+def test_build_ignores_binaries_of_other_sources(tmp_path, monkeypatch):
+    """A binary that is not keyed by the current source (an old
+    `_tsio.so`, however new its mtime) is never reused; a matching one
+    is reused without compiling."""
+    import subprocess
+
+    from topsicle_tpu.native import loader
+
+    src = tmp_path / "tsio.cc"
+    src.write_bytes(open(loader._SRC, "rb").read())
+    build = tmp_path / "build"
+    build.mkdir()
+    (build / "_tsio.so").write_bytes(b"stale")
+    monkeypatch.setattr(loader, "_SRC", str(src))
+    monkeypatch.setattr(loader, "_BUILD_DIR", str(build))
+    compiles = []
+
+    def fake_compile(cmd, **kw):
+        compiles.append(cmd)
+        with open(cmd[cmd.index("-o") + 1], "wb") as fh:
+            fh.write(b"built")
+
+    monkeypatch.setattr(subprocess, "run", fake_compile)
+    first = loader._build()
+    assert len(compiles) == 1 and open(first, "rb").read() == b"built"
+    assert loader._build() == first and len(compiles) == 1
+    src.write_bytes(src.read_bytes() + b"\n// edited\n")
+    assert loader._build() != first and len(compiles) == 2

@@ -1,7 +1,7 @@
 """Device ops vs the pure-Python oracle (property tests on random data).
 
 Runs on the CPU backend (conftest forces JAX_PLATFORMS=cpu); the device
-path is integer-exact, so CPU results are bit-identical to TPU results.
+path is integer-exact, so CPU results are bit-identical to GPU results.
 """
 
 import random

@@ -215,37 +215,3 @@ def test_randomized_param_fuzz_engine_vs_oracle(tmp_path):
         got = (tmp_path / f"j{trial}" / "telolengths_all.csv").read_bytes()
         want = (tmp_path / f"o{trial}" / "telolengths_all.csv").read_bytes()
         assert got == want, f"trial {trial}: {kw}"
-
-
-def test_engine_pallas_sum_kernel_vs_oracle(tmp_path):
-    """Full-pipeline parity with the round-5 fused sum kernel selected
-    (use_pallas='sum' -> Pallas interpret on CPU): engine CSV byte-equal
-    to the oracle on a cohort with N bases, ragged lengths, and
-    reverse-end telomeres.  Op-level kernel parity is covered in
-    test_pallas; this closes the loop through batching, wire-format
-    selection (lean vs dense per batch), and the 8-row fallback."""
-    rng = random.Random(55)
-    data = tmp_path / "in"
-    data.mkdir()
-    with gzip.open(data / "r.fastq.gz", "wt") as fh:
-        for i in range(14):
-            total = rng.randrange(4000, 8000)
-            telo_len = rng.randrange(100, 2200)
-            seq = list(_telo_read(rng, "CCCTAAA", telo_len, total))
-            for _ in range(rng.randrange(0, 4)):
-                seq[rng.randrange(total)] = "N"
-            if rng.random() < 0.5:
-                seq = seq[::-1]
-            s = "".join(seq)
-            fh.write(f"@r{i}\n{s}\n+\n{'I' * len(s)}\n")
-    kw = dict(pattern="CCCTAAA", slide=6, maxlengthtelo=5000,
-              min_seq_length=3500, cutoff=0.3)
-    JaxEngine(TopsicleConfig(input_dir=str(data),
-                             output_dir=str(tmp_path / "j"),
-                             batch_size=8, use_pallas="sum", **kw)).run()
-    OracleEngine(TopsicleConfig(input_dir=str(data),
-                                output_dir=str(tmp_path / "o"),
-                                **kw)).run()
-    got = (tmp_path / "j" / "telolengths_all.csv").read_bytes()
-    want = (tmp_path / "o" / "telolengths_all.csv").read_bytes()
-    assert got == want

@@ -271,3 +271,50 @@ def test_scan_length_modes_identical(demo_fastq, tmp_path):
         JaxEngine(cfg).run()
         outs[mode] = (out / "telolengths_all.csv").read_bytes()
     assert outs["static"] == outs["bucket"]
+
+
+@pytest.mark.parametrize("tail,K,nw", [("forward", 14, 37), ("reverse", 12, 5)])
+def test_rawcount_writer_matches_pandas(tmp_path, tail, K, nw):
+    """The csv-module rawcount writer emits exactly pandas.to_csv's bytes
+    (the reference's writer): LF endings, empty index label, header."""
+    pd = pytest.importorskip("pandas")
+    from types import SimpleNamespace
+
+    rng = np.random.default_rng(K)
+    kmers = ["".join(rng.choice(list("ACGT"), 5)) for _ in range(K)]
+    counts = rng.integers(1, 30, (K, nw)).astype(np.int32)
+    eng = JaxEngine(TopsicleConfig(input_dir="x", output_dir=str(tmp_path),
+                                   pattern="CCCTAAA", slide=7))
+    eng._write_rawcount(SimpleNamespace(tail=tail), SimpleNamespace(kmers=kmers),
+                        counts, 5, 1)
+    pd.DataFrame({
+        "tail": np.repeat(tail, nw * K),
+        "position": np.repeat(np.arange(nw) * 7, K),
+        "pattern": np.tile(np.asarray(kmers, dtype=object), nw),
+        "count": counts.T.reshape(-1),
+    }).to_csv(tmp_path / "want.csv")
+    assert (tmp_path / "rawcount_5_1.csv").read_bytes() == \
+        (tmp_path / "want.csv").read_bytes()
+
+
+@pytest.mark.parametrize("plot", [False, True])
+def test_missing_matplotlib_logs_one_line(tmp_path, monkeypatch, plot):
+    """Without matplotlib the run completes and says so once, with no
+    exception text; the outputs are unchanged."""
+    from topsicle_tpu import plots
+
+    monkeypatch.setattr(plots, "matplotlib_available", lambda: False)
+    rng = random.Random(5)
+    data = tmp_path / "s.fastq.gz"
+    _write_synthetic_fastq(str(data), rng, n_reads=24)
+    JaxEngine(TopsicleConfig(input_dir=str(data), output_dir=str(tmp_path / "j"),
+                             pattern="CCCTAAA", slide=6, batch_size=8,
+                             plot=plot)).run()
+    log = (tmp_path / "j" / "topsicle_run.log").read_text()
+    assert log.count(plots.SKIPPED) == 1
+    assert "plot failed" not in log
+    assert not list((tmp_path / "j").glob("*.png"))
+    OracleEngine(TopsicleConfig(input_dir=str(data), output_dir=str(tmp_path / "o"),
+                                pattern="CCCTAAA", slide=6)).run()
+    assert (tmp_path / "j" / "telolengths_all.csv").read_bytes() == \
+        (tmp_path / "o" / "telolengths_all.csv").read_bytes()

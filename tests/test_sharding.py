@@ -47,36 +47,6 @@ def test_sharded_step2_bit_identical(models):
     np.testing.assert_array_equal(h0, h1)
 
 
-def test_sharded_pallas_sum_bit_identical(models):
-    """The round-5 fused sum kernel under shard_map (one Pallas kernel
-    per shard, interpret mode on CPU) == the single-device XLA path —
-    the flagship kernel must survive the multi-chip wrapping."""
-    base_xla, _ = models
-    base_pl = TelomereScanModel(telophrase_kmers("CCCTAAA", 5),
-                                window_size=100, slide=6, use_pallas="sum")
-    assert base_pl.pallas_kind == "sum"
-    sharded_pl = ShardedScanModel(base_pl, mesh=data_mesh(8))
-
-    rng = np.random.default_rng(6)
-    B, L = 64, 2048      # per-shard batch 8: the kernel's row quantum
-    tails = _random_batch(rng, B, L)
-    lens = rng.integers(150, L, B).astype(np.int32)
-    for i in range(B):
-        tails[i, lens[i]:] = 0xFF
-    n = batching.window_counts_for_lengths(lens, 100, 6)
-    t0, h0 = base_xla.step2_boundary(tails, n)
-    t1, h1 = sharded_pl.step2_boundary(tails, n, lens)   # dense (has N)
-    np.testing.assert_array_equal(t0, t1)
-    np.testing.assert_array_equal(h0, h1)
-    clean = np.where(tails < 4, tails, 0).astype(np.uint8)
-    lens_full = np.full(B, L, np.int32)
-    nf = batching.window_counts_for_lengths(lens_full, 100, 6)
-    t2, h2 = base_xla.step2_boundary(clean, nf)
-    t3, h3 = sharded_pl.step2_boundary(clean, nf, lens_full)  # lean wire
-    np.testing.assert_array_equal(t2, t3)
-    np.testing.assert_array_equal(h2, h3)
-
-
 def test_mesh_batch_divisibility_guard(models):
     _, sharded = models
     ends = np.zeros((9, 2, 1000), np.uint8)

@@ -1,6 +1,6 @@
-"""topsicle-tpu: a TPU-native telomere-boundary engine.
+"""topsicle-tpu: a JAX telomere-boundary engine for GPUs.
 
-A from-scratch re-design (JAX / XLA / Pallas / shard_map) with capability
+A from-scratch re-design (JAX / XLA / shard_map) with capability
 parity with the reference CPU tool Topsicle (see SURVEY.md at the repo
 root).  The compute path is pure-integer on device: 2-bit-class base codes,
 k-mer rolling-code matching, greedy non-overlap counting, and an exact

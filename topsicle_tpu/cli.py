@@ -1,5 +1,5 @@
 """`topsicle` console entry point — flag-compatible with the reference
-CLI (main.py:314-345; 15 flags, same names/defaults) plus a TPU-runtime
+CLI (main.py:314-345; 15 flags, same names/defaults) plus a device-runtime
 group (--engine, --batchSize, ...).
 
 The run-log line sequence mirrors the reference's (parameter echo,
@@ -21,7 +21,7 @@ from topsicle_tpu.io.writer import RunLog
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="topsicle",
-        description="Topsicle-TPU - Telomere length estimation from long reads",
+        description="Topsicle - Telomere length estimation from long reads (JAX engine)",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter,
     )
     p.add_argument("--inputDir", "-i", type=str, metavar="FILE/FOLDER", required=True,
@@ -58,9 +58,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Host parse/encode workers: up to N input files are read "
                         "concurrently (the current one plus N-1 ahead of the device). "
                         "Default: all available cores; 1 = fully serial")
-    # --- TPU runtime (no reference analog) ---
+    # --- device runtime (no reference analog) ---
     p.add_argument("--engine", choices=["jax", "oracle"], default="jax",
-                   help="Compute engine: 'jax' (TPU/accelerator) or 'oracle' (pure-CPU reference semantics)")
+                   help="Compute engine: 'jax' (GPU/accelerator) or 'oracle' (pure-CPU reference semantics)")
     p.add_argument("--batchSize", metavar="INT", type=int, default=128,
                    help="Reads per device batch")
     p.add_argument("--resume", action="store_true",
@@ -68,21 +68,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--traceDir", metavar="FOLDER", type=str, default=None,
                    help="Write a jax.profiler trace of the run to this directory")
     p.add_argument("--precompile", action="store_true",
-                   help="Compile and cache every device program this "
-                        "configuration uses, then exit without reading input "
-                        "(run once per machine/cache volume so later jobs "
-                        "start instantly; see the AOT executable cache)")
+                   help="Compile every device program this configuration "
+                        "uses into the persistent compile cache, then exit "
+                        "without reading input (run once per machine/cache "
+                        "volume so later jobs start warm)")
     p.add_argument("--scanLengthMode", choices=["static", "bucket"], default="static",
                    help="Step-2 padding: 'static' = one device program for the whole "
                         "run (fast startup); 'bucket' = pad per batch (less compute "
                         "on short-read data, one compile per length bucket)")
-    p.add_argument("--kernel", choices=["auto", "xla", "greedy", "sum"],
-                   default="auto",
-                   help="Step-2 compute path: 'xla' = the lean-wire XLA kernels "
-                        "(default; fewest host->device bytes), 'sum' = the fused "
-                        "Pallas sum-signal kernel (fastest on-chip; aperiodic "
-                        "tables), 'greedy' = the fused Pallas greedy kernel. "
-                        "'auto' honors TOPSICLE_USE_PALLAS, else 'xla'")
     # --- multi-host (reference analog: manual SLURM job splitting,
     # README.md:261-270 — here it is automatic and deterministic) ---
     p.add_argument("--coordinator", metavar="HOST:PORT", type=str, default=None,
@@ -120,8 +113,6 @@ def config_from_args(args: argparse.Namespace) -> TopsicleConfig:
         resume=args.resume,
         trace_dir=args.traceDir,
         scan_length_mode=args.scanLengthMode,
-        use_pallas={"auto": None, "xla": False,
-                    "greedy": "greedy", "sum": "sum"}[args.kernel],
         process_id=args.processId,
         process_count=args.processCount,
         shard_mode=args.shardMode,
@@ -153,12 +144,14 @@ def main(argv=None) -> int:
         from topsicle_tpu.parallel.mesh import initialize_distributed
 
         initialize_distributed(args.coordinator, args.processCount, args.processId)
+    cache_dir = None
     if cfg.engine == "jax":
         import jax
 
         from topsicle_tpu.utils.compile_cache import enable_compilation_cache
 
-        enable_compilation_cache()
+        cache_dir = enable_compilation_cache()
+        log(f"compile cache: {cache_dir}")
         log(f"devices: {[str(d) for d in jax.devices()]}")
     log.plain("---------------------")
 
@@ -171,7 +164,7 @@ def main(argv=None) -> int:
         from topsicle_tpu.pipeline import JaxEngine
 
         n = JaxEngine(cfg, log=log).precompile()
-        log(f"precompiled {n} device programs; cache is warm")
+        log(f"precompiled {n} device programs into {cache_dir}")
         print(f"Elapsed time(s): {time.time() - start_time:.2f} seconds")
         return 0
 

@@ -1,8 +1,9 @@
 """Typed run configuration.
 
 One dataclass holds every knob of the reference CLI (the 15 argparse flags
-at /root/reference/Topsicle/main.py:319-334) plus the TPU-runtime section
-(mesh shape, batch sizes, bucketing) that the reference has no analog for.
+at /root/reference/Topsicle/main.py:319-334) plus the device-runtime
+section (batch sizes, bucketing, sharding) that the reference has no
+analog for.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ def _as_list(x) -> list:
 
 @dataclasses.dataclass
 class TopsicleConfig:
-    """Analysis parameters (reference-compatible) + TPU runtime section.
+    """Analysis parameters (reference-compatible) + device runtime section.
 
     Defaults mirror /root/reference/Topsicle/main.py:319-334.
     """
@@ -51,22 +52,17 @@ class TopsicleConfig:
     # (main.py:57 `no_bp=1000`).
     no_bp: int = 1000
 
-    # --- TPU runtime section (no reference analog) ---
+    # --- device runtime section (no reference analog) ---
     batch_size: int = 128        # reads per device step (global, pre-shard)
     length_bucket_quantum: int = 512   # scan lengths rounded up to this
     # Step-2 scan length: "static" compiles ONE device program with
     # L = maxlengthtelo - trimfirst (rounded to the quantum) and pads
     # every batch to it; "bucket" pads each batch to its own rounded max
     # length (smaller transfers, but one device-program compile per
-    # bucket — remote TPU compile services charge seconds..minutes per
-    # new program, which dominated end-to-end time in round 1).
+    # length bucket, each a cold start unless the persistent compile
+    # cache already holds it).
     scan_length_mode: str = "static"
     engine: str = "jax"          # "jax" (device path) or "oracle" (pure CPU)
-    # step-2 compute path: None => auto (the XLA kernels); True/"greedy"
-    # => the fused greedy Pallas kernel; "sum" => the round-5 scan-free
-    # sum-signal Pallas kernel (aperiodic tables; falls back to greedy
-    # otherwise) — models.telomere.resolve_pallas_kind has the numbers
-    use_pallas: Optional[object] = None
     native_io: Optional[bool] = None   # None => auto (C++ loader if built)
     resume: bool = False         # skip (file, phrase) units completed per manifest
     trace_dir: Optional[str] = None    # jax.profiler trace output dir

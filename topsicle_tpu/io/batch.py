@@ -122,100 +122,6 @@ def pack_batch(codes: np.ndarray):
     return packed, inval_bits
 
 
-def pack_batch_planar(codes: np.ndarray):
-    """Planar 2-bit pack for the Pallas fused kernel.
-
-    Same byte counts as pack_batch, different layout: packed word `w`
-    holds the bases at positions {w, w+Q, w+2Q, w+3Q} (Q = L/4) in bit
-    pairs 0-1/2-3/4-5/6-7, and invalid byte `b` holds the flags of
-    positions {b + s*(L/8)} at bit `s`.  Unpacking on device is then
-    shift+mask+concatenate-along-lanes — Mosaic lowers that, whereas the
-    interleave reshape the positional layout needs is an unsupported
-    vector shape cast on the current toolchain (see ops/pallas_kernels).
-    L pads to a multiple of 8 with invalid positions.
-    """
-    B, L = codes.shape
-    Lp = ((L + 7) // 8) * 8
-    if Lp != L:
-        codes = np.pad(codes, ((0, 0), (0, Lp - L)), constant_values=PAD_BYTE)
-    invalid = (codes >= 4).reshape(B, 8, Lp // 8)
-    bits = (codes & 3).astype(np.uint8).reshape(B, 4, Lp // 4)
-    packed = (
-        bits[:, 0] | (bits[:, 1] << 2) | (bits[:, 2] << 4) | (bits[:, 3] << 6)
-    )
-    inval_bits = np.zeros((B, Lp // 8), np.uint8)
-    for s in range(8):
-        inval_bits |= invalid[:, s].astype(np.uint8) << s
-    return packed, inval_bits
-
-
-def pack_tails_phase_planar(codes: np.ndarray, k: int, window_size: int,
-                            slide: int):
-    """Phase-planar blocked wire format for the fused Pallas step-2
-    kernel (ops/pallas_kernels.py documents why this layout is the one
-    Mosaic can lower).
-
-    Base codes are decimated into `slide` phase planes (plane r holds
-    positions r, r+slide, ...); per window block, the bq consecutive
-    plane entries its windows touch (including the scan halo) are
-    gathered plane-major into a flat segment of Pb = slide*bq codes,
-    and each segment is 2-bit packed planarly (pack_batch_planar).
-    Returns (packed [B, nWB*Pb/4], invalid_bits [B, nWB*Pb/8]).
-    Out-of-range plane entries are invalid-padded (poison k-mers).
-    """
-    from topsicle_tpu.ops.pallas_kernels import phase_plane_geometry
-
-    B, L = codes.shape
-    _, W, WB, nWB, _, bq = phase_plane_geometry(L, k, window_size, slide)
-    if W == 0:
-        return (np.zeros((B, 0), np.uint8), np.zeros((B, 0), np.uint8))
-    # full phase planes, entry (r, q) = padded[:, q*slide + r]
-    nq_full = WB * (nWB - 1) + bq          # last block reaches furthest
-    P_full = nq_full * slide
-    padded = np.pad(codes, ((0, 0), (0, max(0, P_full - L))),
-                    constant_values=PAD_BYTE)[:, :P_full]
-    planes = np.ascontiguousarray(
-        padded.reshape(B, nq_full, slide).transpose(0, 2, 1)
-    )                                       # [B, slide, nq_full]
-    # per-block segments [B, nWB, slide, bq] -> flat [B*nWB, Pb]
-    seg = np.empty((B, nWB, slide, bq), np.uint8)
-    for wb in range(nWB):
-        seg[:, wb] = planes[:, :, wb * WB : wb * WB + bq]
-    flat = seg.reshape(B * nWB, slide * bq)
-    p, iv = pack_batch_planar(flat)
-    return p.reshape(B, -1), iv.reshape(B, -1)
-
-
-def pack_tails_phase_planar_lean(codes: np.ndarray, k: int, window_size: int,
-                                 slide: int) -> np.ndarray:
-    """Lean phase-planar wire: like pack_tails_phase_planar but WITHOUT
-    the invalid-bit plane — 2 bits/base on the wire (1.5x less traffic).
-    Valid only for clean (pure-ACGT) batches; the kernel reconstructs
-    suffix invalidity from per-read lengths
-    (ops.pallas_kernels.step2_signal_pallas_lean).  Returns packed
-    [B, nWB*Pb/4] uint8."""
-    from topsicle_tpu.ops.pallas_kernels import phase_plane_geometry
-
-    B, L = codes.shape
-    _, W, WB, nWB, _, bq = phase_plane_geometry(L, k, window_size, slide)
-    if W == 0:
-        return np.zeros((B, 0), np.uint8)
-    nq_full = WB * (nWB - 1) + bq
-    P_full = nq_full * slide
-    padded = np.pad(codes, ((0, 0), (0, max(0, P_full - L))),
-                    constant_values=PAD_BYTE)[:, :P_full]
-    planes = np.ascontiguousarray(
-        padded.reshape(B, nq_full, slide).transpose(0, 2, 1)
-    )                                       # [B, slide, nq_full]
-    seg = np.empty((B, nWB, slide, bq), np.uint8)
-    for wb in range(nWB):
-        seg[:, wb] = planes[:, :, wb * WB : wb * WB + bq]
-    flat = seg.reshape(B * nWB, slide * bq)
-    bits = (flat & 3).astype(np.uint8).reshape(B * nWB, 4, (slide * bq) // 4)
-    p = bits[:, 0] | (bits[:, 1] << 2) | (bits[:, 2] << 4) | (bits[:, 3] << 6)
-    return p.reshape(B, -1)
-
-
 def pack_codes(codes: np.ndarray) -> np.ndarray:
     """Lean wire format: [B, L] uint8 codes -> packed [B, ceil(L/4)]
     uint8, 2 bits/base with NO invalid-mask plane.  Valid only for

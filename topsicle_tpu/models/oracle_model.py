@@ -39,8 +39,6 @@ def _decode(codes: np.ndarray, n: int) -> str:
 class OracleScanModel:
     """Drop-in TelomereScanModel replacement computed on host."""
 
-    use_pallas = False
-
     def __init__(self, kmers: Sequence[str], *, window_size: int = 100,
                  slide: int = 7, jump: int = 5, min_size: int = 2):
         if not kmers:

@@ -1,8 +1,14 @@
-"""Build-on-demand ctypes loader for native/tsio.cc."""
+"""Build-on-demand ctypes loader for native/tsio.cc.
+
+The library is built from the committed source only: the output name
+carries a hash of tsio.cc, so an edited source always rebuilds and a
+binary built elsewhere is never picked up.  Builds land in native/build/,
+which git ignores."""
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
@@ -13,39 +19,54 @@ import numpy as np
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
+_ERROR: Optional[str] = None     # why the library is unavailable, if it is
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(os.path.dirname(_PKG_DIR), "native", "tsio.cc")
-_SO = os.path.join(os.path.dirname(_PKG_DIR), "native", "_tsio.so")
+_NATIVE_DIR = os.path.join(os.path.dirname(_PKG_DIR), "native")
+_SRC = os.path.join(_NATIVE_DIR, "tsio.cc")
+_BUILD_DIR = os.path.join(_NATIVE_DIR, "build")
 
 
-def _build() -> Optional[str]:
-    if os.path.exists(_SO) and os.path.getmtime(_SO) >= os.path.getmtime(_SRC):
-        return _SO
+def library_path() -> str:
+    """Where the library built from the current tsio.cc lives."""
+    with open(_SRC, "rb") as fh:
+        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
+    return os.path.join(_BUILD_DIR, f"_tsio-{digest}.so")
+
+
+def _build() -> str:
+    so = library_path()
+    if os.path.exists(so):
+        return so
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    # build under a private name, then rename: concurrent first users
+    # (reader threads, several processes) never load a half-written file
+    tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
     try:
         subprocess.run(
-            ["g++", "-O3", "-std=c++17", "-fPIC", "-shared", _SRC, "-o", _SO, "-lz"],
+            ["g++", "-O3", "-std=c++17", "-fPIC", "-shared", _SRC, "-o", tmp, "-lz"],
             check=True, capture_output=True, timeout=120,
         )
-        return _SO
-    except Exception:
-        return None
+        os.replace(tmp, so)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return so
 
 
 def _lib() -> Optional[ctypes.CDLL]:
-    global _LIB, _TRIED
+    global _LIB, _TRIED, _ERROR
     with _LOCK:
         if _LIB is not None or _TRIED:
             return _LIB
         _TRIED = True
-        if not os.path.exists(_SRC):
-            return None
-        so = _build()
-        if so is None:
-            return None
         try:
-            lib = ctypes.CDLL(so)
-        except OSError:
+            lib = ctypes.CDLL(_build())
+        except subprocess.CalledProcessError as e:
+            _ERROR = "g++ failed: " + e.stderr.decode(errors="replace")[-500:]
+            return None
+        except (OSError, subprocess.SubprocessError) as e:
+            _ERROR = f"{type(e).__name__}: {e}"
             return None
         lib.tsio_open.restype = ctypes.c_void_p
         lib.tsio_open.argtypes = [ctypes.c_char_p, ctypes.c_int64]
@@ -71,6 +92,12 @@ def _lib() -> Optional[ctypes.CDLL]:
 
 def native_available() -> bool:
     return _lib() is not None
+
+
+def unavailable_reason() -> Optional[str]:
+    """Why the native library could not be built or loaded (None when
+    it loaded, or was never tried)."""
+    return _ERROR
 
 
 class Block:

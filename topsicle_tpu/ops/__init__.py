@@ -1,8 +1,8 @@
-"""Device ops (JAX/XLA; Pallas kernels in ops.pallas_kernels).
+"""Device ops (JAX/XLA).
 
 The whole device pipeline is pure-integer — base codes, match bits,
 counts, prefix sums, and an exact int64/uint64-limb changepoint argmax —
-so results are bit-stable across backends (CPU == TPU), mesh shapes, and
+so results are bit-stable across backends (CPU == GPU), mesh shapes, and
 batch orders.  64-bit mode is required for the changepoint arithmetic and
 is enabled here, before any tracing.
 """

@@ -1,7 +1,8 @@
 """Single-changepoint binary segmentation (L2 cost) on device, exact.
 
 Equivalent of ruptures 1.1.9 `Binseg(model="l2").predict(n_bkps=1)` as
-used by the reference (allsteps.py:310-311), re-derived for TPU:
+used by the reference (allsteps.py:310-311), re-derived for batched
+integer arithmetic on device:
 
 minimizing  cost(y[:t]) + cost(y[t:])  with cost = sum((y-mean)^2)  is
 equivalent to maximizing
@@ -13,7 +14,7 @@ Y = K*y (sum of counts-or-1 over the K k-mers) the argmax is identical,
 so the whole decision is integer arithmetic: A = n*S_t - t*S_n and
 D = t*(n-t) in int64, and cross-comparison A1^2*D2 vs A2^2*D1 in exact
 128+-bit arithmetic via 32-bit limbs (fp32 cannot resolve these
-magnitudes; TPU has no fp64).  Ties break to the smaller t
+magnitudes, and integers keep every backend bit-identical).  Ties break to the smaller t
 (first-best-wins, the verified ruptures behavior — SURVEY.md §8 item 9).
 
 Candidates follow ruptures' sub-sampling: t a multiple of `jump` with
@@ -129,10 +130,10 @@ def binseg_l2_device(y_int, num_windows, jump: int = 5, min_size: int = 2,
     num_windows:  [B] valid-window count n per read (ragged batches)
     y_max:        optional static bound on y_int values; when
                   W * y_max fits int32 the full-width cumsum — the
-                  only [B, W]-sized term here — runs in NATIVE int32
-                  instead of emulated int64 (TPU int64 is 2x32 limb
-                  emulation; the downstream A/D arithmetic is [B, J]
-                  = W/jump-sized and stays int64).  Callers with a
+                  only [B, W]-sized term here — runs in int32 instead
+                  of int64 (half the bytes; the downstream A/D
+                  arithmetic is [B, J] = W/jump-sized and stays
+                  int64).  Callers with a
                   known signal cap (the window scan: y <= K*(J+1))
                   pass it; exactness is unaffected either way.
     Returns (t [B] int64, has_candidate [B] bool); t is the left-segment
@@ -141,8 +142,8 @@ def binseg_l2_device(y_int, num_windows, jump: int = 5, min_size: int = 2,
     B, W = y_int.shape
     # Full-width cumsum + static gather at the candidate positions.
     # (A jump-block variant — reshape [B, J, jump].sum(-1) + short
-    # cumsum — measured 2.6x SLOWER: the width-jump minor axis uses 5
-    # of 128 lanes.  Keep the lane-friendly full-width form.)
+    # cumsum — was slower on the accelerator this was first tuned for:
+    # its minor axis is only `jump` wide.  Not measured on the H100.)
     if y_max is not None and W * y_max <= 0x7FFFFFFF:
         S = jnp.cumsum(y_int.astype(jnp.int32), axis=1)
     else:
@@ -177,19 +178,13 @@ def binseg_l2_device(y_int, num_windows, jump: int = 5, min_size: int = 2,
     # D = t*(n-t) <= W^2/4: one 32-bit limb suffices for W <= 131071
     mul = _mul_limbs_1 if (W * W) // 4 <= 0xFFFFFFFF else _mul_limbs
     sq = _sq_limbs(A)
-    # Pair CONTIGUOUS halves each level.  Strided pairings (0::2/1::2,
-    # or an 8-ary i::8 grouping) measured 2.8-4x slower on TPU — minor-
-    # axis strided slices force lane relayouts; contiguous halves are
-    # free.  The tie rule compares actual t values inside _pick, so the
-    # tree shape cannot change the first-best-wins result.  A 4-ary
-    # contiguous-quarters variant (5 levels instead of 10) measured
-    # 0.46 vs 0.43-0.46 ms/iter same-session on the full fused chain —
-    # no win: inside one jitted program the levels are data
-    # dependencies, not kernel launches, so halving the depth buys
-    # nothing (2026-08-21 A/B).  Transposing the tournament to [m, B]
-    # (batch = exactly the 128 lanes on minor) also measured flat-to-
-    # worse (0.458-0.472 vs 0.431-0.458 same-session) — the row-major
-    # form stays.
+    # Pair CONTIGUOUS halves each level: contiguous slices need no
+    # relayout, where strided pairings (0::2/1::2) did on the
+    # accelerator this was first tuned for (a 4-ary tree and a
+    # transposed [m, B] layout did not win there either; none is
+    # measured on the H100).  The tie rule compares actual t values
+    # inside _pick, so the tree shape cannot change the first-best-wins
+    # result.
     while D.shape[1] > 1:
         h = D.shape[1] // 2
         sq, D, tt, valid = _pick(

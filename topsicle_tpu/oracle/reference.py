@@ -2,7 +2,7 @@
 
 Every rule here is the verified contract of SURVEY.md §8, with citations
 into /root/reference/Topsicle/.  This module is deliberately simple and
-sequential — it is the ground truth the TPU path is property-tested
+sequential — it is the ground truth the device path is property-tested
 against, not the fast path.
 """
 
@@ -277,8 +277,7 @@ class OracleEngine:
             # LF line endings: the reference writes this frame with
             # pandas (main.py:146-150), whose output is LF on Linux —
             # the committed demo artifact confirms (csv.writer's default
-            # CRLF would diverge from both it and the jax engine's
-            # pandas writer)
+            # CRLF would diverge from it)
             with open(path, "w", newline="") as fh:
                 w = _csv.writer(fh, lineterminator="\n")
                 w.writerow(["", "tail", "position", "pattern", "count"])

@@ -21,7 +21,8 @@ def data_mesh(n_devices: Optional[int] = None,
     """1-D mesh over `n_devices` (default: all visible devices).
 
     Reads are embarrassingly parallel, so one axis is the whole story;
-    within a pod slice the all-gather of per-read records rides ICI."""
+    every card reaches every other over NVLink at the same rate, so the
+    device order needs no topology awareness."""
     if devices is None:
         devices = jax.devices()
         if n_devices is not None:

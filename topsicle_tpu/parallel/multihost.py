@@ -6,9 +6,9 @@ on its own chips; this mode instead forms a GLOBAL read batch — each
 host contributes its local shard via
 `jax.make_array_from_process_local_data` — and lets GSPMD partition the
 scan programs over the whole mesh, with results replicated back to all
-hosts (XLA inserts the all-gather; it rides ICI within a slice and DCN
-across hosts).  That is the BASELINE north-star layout: compute load
-balances across all chips even when hosts' input files are skewed.
+hosts (XLA inserts the all-gather, which NCCL carries between cards).
+Compute load balances across all cards even when processes' input files
+are skewed.
 
 Reference analog: none — the reference's cross-node story is manual
 SLURM job splitting (README.md:261-270).  Validated two-process on CPU
@@ -54,26 +54,19 @@ class GlobalScanModel:
             _step1_counts, _step1_counts_lean, _step2_boundary,
             _step2_boundary_lean)
 
-        from topsicle_tpu.utils.aot_cache import AotJit
-
-        # AotJit (utils/aot_cache.py): GSPMD executables serialize like
-        # single-chip ones; the cache key covers the device topology, so
-        # every process of a pod loads the same pinned binary.
-        self._step1 = AotJit(
+        self._step1 = jax.jit(
             functools.partial(_step1_counts_lean, k=base.k,
                               greedy=base.greedy_strategy,
                               split_idx=base._split_idx),
-            name="gl_step1",
             in_shardings=(self._shard3, self._shard, self._repl),
             out_shardings=self._repl,
         )
-        self._step2 = AotJit(
+        self._step2 = jax.jit(
             functools.partial(
                 _step2_boundary_lean, k=base.k, window_size=base.window_size,
                 slide=base.slide, jump=base.jump, min_size=base.min_size,
                 strategy=base.window_strategy, split_idx=base._split_idx,
             ),
-            name="gl_step2",
             in_shardings=(self._shard2, self._shard, self._shard, self._repl),
             out_shardings=(self._repl, self._repl),
         )
@@ -81,21 +74,19 @@ class GlobalScanModel:
         # an in-prefix non-ACGT base (the lean/dense choice must be
         # agreed by all processes — a host-local fallback would have
         # processes calling different programs and deadlock)
-        self._step1_dense = AotJit(
+        self._step1_dense = jax.jit(
             functools.partial(_step1_counts, k=base.k,
                               greedy=base.greedy_strategy,
                               split_idx=base._split_idx),
-            name="gl_step1_dense",
             in_shardings=(self._shard3, self._shard3, self._repl),
             out_shardings=self._repl,
         )
-        self._step2_dense = AotJit(
+        self._step2_dense = jax.jit(
             functools.partial(
                 _step2_boundary, k=base.k, window_size=base.window_size,
                 slide=base.slide, jump=base.jump, min_size=base.min_size,
                 strategy=base.window_strategy, split_idx=base._split_idx,
             ),
-            name="gl_step2_dense",
             in_shardings=(self._shard2, self._shard2, self._shard, self._repl),
             out_shardings=(self._repl, self._repl),
         )

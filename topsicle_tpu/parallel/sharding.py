@@ -12,14 +12,11 @@ from __future__ import annotations
 import functools
 from typing import Tuple
 
+import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import shard_map
 from jax.sharding import PartitionSpec as P
-
-try:
-    from jax import shard_map
-except ImportError:  # pragma: no cover - older jax layout
-    from jax.experimental.shard_map import shard_map
 
 from topsicle_tpu.models.telomere import (
     _batch_is_clean,
@@ -27,11 +24,8 @@ from topsicle_tpu.models.telomere import (
     _step1_counts_lean,
     _step2_boundary,
     _step2_boundary_lean,
-    _step2_boundary_pallas,
-    _step2_boundary_pallas_lean,
 )
 from topsicle_tpu.parallel.mesh import DATA_AXIS, data_mesh
-from topsicle_tpu.utils.aot_cache import AotJit
 
 
 class ShardedScanModel:
@@ -57,26 +51,13 @@ class ShardedScanModel:
         spec_b = P(DATA_AXIS)      # shard batch axis
         spec_r = P()               # replicated
 
-        # AotJit: the serialized-executable cache (utils/aot_cache.py)
-        # applies to sharded programs too — the executable records its
-        # device assignment, and the key covers mesh topology via the
-        # lowered module text + device count.
-        self._step1 = AotJit(
-            shard_map(
-                step1, mesh=self.mesh,
-                in_specs=(spec_b, spec_b, spec_r), out_specs=spec_b,
-            ),
-            name="sh_step1",
-        )
-
-        self._step2 = AotJit(
-            shard_map(
-                step2, mesh=self.mesh,
-                in_specs=(spec_b, spec_b, spec_b, spec_r),
-                out_specs=(spec_b, spec_b),
-            ),
-            name="sh_step2",
-        )
+        self._step1 = jax.jit(shard_map(
+            step1, mesh=self.mesh,
+            in_specs=(spec_b, spec_b, spec_r), out_specs=spec_b))
+        self._step2 = jax.jit(shard_map(
+            step2, mesh=self.mesh,
+            in_specs=(spec_b, spec_b, spec_b, spec_r),
+            out_specs=(spec_b, spec_b)))
 
         step1_lean = functools.partial(_step1_counts_lean, k=k,
                                        greedy=base.greedy_strategy,
@@ -86,55 +67,13 @@ class ShardedScanModel:
             slide=base.slide, jump=base.jump, min_size=base.min_size,
             strategy=base.window_strategy, split_idx=base._split_idx,
         )
-        self._step1_lean = AotJit(
-            shard_map(
-                step1_lean, mesh=self.mesh,
-                in_specs=(spec_b, spec_b, spec_r), out_specs=spec_b,
-            ),
-            name="sh_step1_lean",
-        )
-        self._step2_lean = AotJit(
-            shard_map(
-                step2_lean, mesh=self.mesh,
-                in_specs=(spec_b, spec_b, spec_b, spec_r),
-                out_specs=(spec_b, spec_b),
-            ),
-            name="sh_step2_lean",
-        )
-        # fused Pallas step-2 under shard_map (one kernel per shard,
-        # same wire formats as the base model's pallas path).  L is a
-        # static geometry parameter, so programs are built per L on
-        # first use (the engine's static scan mode means ONE L per run)
-        self._pallas_progs: dict = {}
-
-    def _pallas_prog(self, L: int, lean: bool):
-        key = (L, lean)
-        if key not in self._pallas_progs:
-            base = self.base
-            spec_b = P(DATA_AXIS)
-            spec_r = P()
-            fn = _step2_boundary_pallas_lean if lean else _step2_boundary_pallas
-            bound = functools.partial(
-                fn, k=base.k, K=base.K, window_size=base.window_size,
-                slide=base.slide, jump=base.jump, min_size=base.min_size,
-                L=L, interpret=base._pallas_interpret,
-                mode=base.pallas_kind or "greedy",
-            )
-            self._pallas_progs[key] = AotJit(
-                shard_map(
-                    bound, mesh=self.mesh,
-                    in_specs=(spec_b, spec_b, spec_b, spec_r),
-                    out_specs=(spec_b, spec_b),
-                    # pallas_call's out_shape carries no vma annotation,
-                    # which the shard_map varying-mesh-axis checker
-                    # requires; the program is trivially per-shard (no
-                    # collectives inside), so disabling the checker
-                    # here is sound — the XLA sharded programs keep it
-                    check_vma=False,
-                ),
-                name=f"sh_step2_pallas_{'lean' if lean else 'dense'}",
-            )
-        return self._pallas_progs[key]
+        self._step1_lean = jax.jit(shard_map(
+            step1_lean, mesh=self.mesh,
+            in_specs=(spec_b, spec_b, spec_r), out_specs=spec_b))
+        self._step2_lean = jax.jit(shard_map(
+            step2_lean, mesh=self.mesh,
+            in_specs=(spec_b, spec_b, spec_b, spec_r),
+            out_specs=(spec_b, spec_b)))
 
     # -- host-facing API (packs on host, same wire format as the base) -----
     def step1_counts_launch(self, ends_codes: np.ndarray,
@@ -168,25 +107,6 @@ class ShardedScanModel:
 
         B = tail_codes.shape[0]
         assert B % self.n == 0, "batch not divisible by mesh"
-        if self.base.use_pallas and (B // self.n) % 8 == 0:
-            # flagship fused kernel, one per shard (same gate as the
-            # base model: per-shard batches must allow the 8-row
-            # sublane tiling; otherwise the XLA path below)
-            L = tail_codes.shape[1]
-            if lens is not None and _batch_is_clean(tail_codes, lens):
-                p = batching.pack_tails_phase_planar_lean(
-                    tail_codes, self.base.k, self.base.window_size,
-                    self.base.slide)
-                return self._pallas_prog(L, lean=True)(
-                    jnp.asarray(p),
-                    jnp.asarray(lens.astype(np.int32).reshape(-1, 1)),
-                    jnp.asarray(n_windows), self.base.table)
-            p, iv = batching.pack_tails_phase_planar(
-                tail_codes, self.base.k, self.base.window_size,
-                self.base.slide)
-            return self._pallas_prog(L, lean=False)(
-                jnp.asarray(p), jnp.asarray(iv), jnp.asarray(n_windows),
-                self.base.table)
         if lens is not None and _batch_is_clean(tail_codes, lens):
             p = batching.pack_codes(tail_codes)
             return self._step2_lean(
